@@ -1,15 +1,15 @@
-"""odometry_tpu — a TPU-native direct stereo semi-dense visual odometry / SLAM engine.
+"""odometry_tpu — a direct stereo semi-dense visual odometry / SLAM engine.
 
 A from-scratch JAX/XLA/Pallas re-design of the capabilities of the reference
 C++ system (WangYuTum/odometry): stereo semi-dense inverse-depth estimation,
 coarse-to-fine direct photometric SE(3) tracking, keyframing, mapping with
-windowed bundle adjustment, and multi-chip scaling via jax.sharding meshes.
+windowed bundle adjustment, and multi-device scaling via jax.sharding meshes.
 
 Layers (bottom-up):
   geometry/     pure-JAX SE(3)/SO(3) (replaces vendored Sophus)
   camera/       pinhole model + calibration + rectification as data
   image/        pyramids, gradients, sampling (replaces OpenCV image ops)
-  kernels/      hot compute kernels, jnp reference + Pallas TPU versions
+  kernels/      hot compute kernels (jnp; a Pallas/Triton stereo search on GPU)
   solvers/      Levenberg-Marquardt engines as lax.while_loop
   depth/        stereo disparity search + inverse-depth refinement frontend
   tracking/     coarse-to-fine direct photometric pose tracker

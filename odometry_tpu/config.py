@@ -45,8 +45,8 @@ class TrackerConfig:
     lambda_max: float = 1e5
     lambda_min: float = 1e-5
     # Warp sampling: "floor" (reference parity, integer warp), "bilinear"
-    # (sub-pixel, gather-based), or "mm" (sub-pixel via gather-free MXU
-    # one-hot matmuls, bf16 image quantization — the TPU-fast path; gradients
+    # (sub-pixel, gather-based), or "mm" (sub-pixel via gather-free
+    # one-hot matmuls, bf16 image quantization; gradients
     # are bilinearly interpolated at the warp rather than nearest-gathered).
     interp: str = "floor"
     # Early termination when the LM step's twist norm falls below this
@@ -58,8 +58,7 @@ class TrackerConfig:
     # Looser step tolerance for the coarse levels (l > 0). A coarse level's
     # only job is to land inside the next level's basin (a couple of px at
     # ITS scale), so iterating it to step_tol precision is pure while-loop
-    # overhead — xprof: the 4 nested LM loops' per-iteration scalar plumbing
-    # was 22.7% of the r4 step. 0 = use step_tol everywhere.
+    # overhead. 0 = use step_tol everywhere.
     coarse_step_tol: float = 0.0
     # Brightness-affine residual r = I2(warp) - (a*I1 + b), with (a, b) a
     # closed-form masked LS fit evaluated ONCE per frame at the warm-start
@@ -73,7 +72,7 @@ class TrackerConfig:
     # image/depth pyramid misalignment (see image/pyramid.py); "even" aligns.
     depth_decimation: str = "odd"
     # Execution engine: "points" extracts valid-depth pixels into
-    # fixed-capacity lists once per keyframe (the TPU-fast path — gathers
+    # fixed-capacity lists once per keyframe (the fast path — gathers
     # scale with the ~5-8% of pixels that matter); "dense" computes masked
     # full-frame tensors (simpler; used for parity testing). Same math.
     engine: str = "points"
@@ -86,10 +85,10 @@ class TrackerConfig:
     # Capacity-truncation order: "row" = reference parity (first N valid in
     # row-major order); "spread" = 8x8 phase-interleaved enumeration, so a
     # truncated selection is a spatially uniform subsample (required when
-    # point_capacity is set below the typical valid count); "blocked" = the
-    # TPU-fast spatially-capped per-tile top_k (same uniformity intent as
-    # spread at ~1/40 the cost — the global nonzero compaction spread/row use
-    # lowers to a full-image cumsum, ~4-9 ms per call at KITTI size).
+    # point_capacity is set below the typical valid count); "blocked" = a
+    # spatially-capped per-tile top_k (same uniformity intent as spread,
+    # without the full-image cumsum of the global nonzero compaction that
+    # spread/row use).
     point_order: str = "row"
     # Warm-start policy for the per-frame solve. "reference" = the previous
     # frame's pose_to_keyframe in both branches (Reset(pose_to_keyframe),
@@ -148,7 +147,7 @@ class DepthConfig:
     max_disparity: int | None = None
     # Refinement warp sampling: "floor" = reference parity (integer warp,
     # +-0.5 px systematic bias); "bilinear" = true sub-pixel refinement;
-    # "mm" = sub-pixel via gather-free MXU matmuls (TPU-fast).
+    # "mm" = sub-pixel via gather-free one-hot matmuls.
     interp: str = "floor"
     # Beyond-reference: left-right cycle-consistency check on the SSD winner
     # (nearly free in the cost-matrix formulation; kills accidental matches).
@@ -185,8 +184,8 @@ class DepthConfig:
     # Refinement executor: "full" gathers from the full right image every LM
     # iteration (any interp mode; required for reference parity), "patch"
     # gathers one small window around each lane's search winner once and
-    # iterates in lane math (bilinear semantics; ~10x less refine HBM
-    # traffic, xprof-measured ~5 ms -> ~0.5 ms per KITTI depth run). "auto"
+    # iterates in lane math (bilinear semantics; ~10x less refine memory
+    # traffic). "auto"
     # = patch exactly when its window assumption holds: sub-pixel interp,
     # matched-only lanes, drift-capped.
     refine_backend: str = "auto"
@@ -195,8 +194,6 @@ class DepthConfig:
     # (depth_estimate.cpp:183) — same effect, applied where it also prevents
     # accidental matches and saves compute.
     range_limited_search: bool = False
-    # SSD search backend: "auto" = Pallas fused kernel on TPU, XLA elsewhere.
-    search_backend: str = "auto"
     # Refinement-lane truncation order (see TrackerConfig.point_order).
     point_order: str = "row"
 
@@ -346,27 +343,23 @@ def fast_config() -> PipelineConfig:
     lazy depth. Accuracy stays at accurate_config level (sub-pixel warps
     converge in few iterations; the step tolerance only cuts the tail)."""
     return PipelineConfig(
-        # Capacity caps sit at the measured accuracy-vs-throughput knee
-        # (tools/capacity_knee.py, bench workload): point_capacity
-        # {2048: 0.068/324 fps, 4096: 0.064/365, 8192: 0.081/337,
-        # 16384: 0.093/290} — the quality-ranked blocked extraction means
-        # tighter caps keep only the strongest points, so 4096 wins BOTH
-        # axes with a >2x margin to the gate.
+        # Capacity caps sit at the accuracy-vs-throughput knee that
+        # tools/capacity_knee.py measures on the bench workload: the
+        # quality-ranked blocked extraction means tighter caps keep only the
+        # strongest points.
         tracker=TrackerConfig(interp="mm", depth_decimation="even",
                               step_tol=1e-5, coarse_step_tol=2e-3,
                               point_capacity=4096,
                               point_order="blocked"),
         # Depth-side "blocked" is quality-ranked + SSD-threshold-aware
         # (kernels/points.py priority path): the per-tile cap keeps the
-        # strongest-gradient matches, so it beats "spread" on BOTH axes.
-        # max_residuals knee: {8192: 0.060/360 fps, 16384: 0.081/311,
-        # 32768: 0.113/302}.
+        # strongest-gradient matches, so it beats "spread" on accuracy.
         # Refinement interp is "bilinear", not "mm": the stereo refinement
         # warp is ROW-LOCAL (one row per lane), so the matmul sampler's
         # full-image contraction is wasteful AND its bf16 quantization
         # measurably corrupts the depth map on weak-texture scenes (bisect:
         # driving-scene seed 4 diverges at mte 2.86 with "mm", tracks at
-        # 0.101 with "bilinear"; bench cost is 402 -> 353 fps, still >10x).
+        # 0.101 with "bilinear").
         depth=DepthConfig(max_disparity=192, interp="bilinear", lr_check=True,
                           range_limited_search=True, precision=0.99,
                           max_residuals=8192, point_order="blocked",

@@ -19,6 +19,7 @@ used Middlebury GT disparity) but with closed-form ground truth.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -26,6 +27,10 @@ import numpy as np
 
 from odometry_tpu.camera.pinhole import Pinhole
 from odometry_tpu.geometry import mat_to_rt
+
+# Rendered frames must not depend on the device's default f32 matmul
+# precision (TF32 on a GPU), or every frame differs between devices.
+_einsum = functools.partial(jnp.einsum, precision=jax.lax.Precision.HIGHEST)
 
 
 @jax.tree_util.register_dataclass
@@ -59,14 +64,14 @@ class PlaneScene:
 
     def texture(self, p: jax.Array) -> jax.Array:
         """p: (..., 3) world points -> intensity in roughly [0, 255]."""
-        phase = jnp.einsum("kj,...j->...k", self.freqs, p) + self.phases
+        phase = _einsum("kj,...j->...k", self.freqs, p) + self.phases
         s = jnp.sin(phase)
-        val = jnp.einsum("k,...k->...", self.amps, s)
-        val = val + self.ridge * jnp.einsum(
+        val = _einsum("k,...k->...", self.amps, s)
+        val = val + self.ridge * _einsum(
             "k,...k->...", self.amps, jnp.abs(s) - (2.0 / jnp.pi))
         diff = p[..., None, :] - self.blob_centers  # (..., J, 3)
         r2 = jnp.sum(diff * diff, axis=-1)
-        val = val + jnp.einsum("j,...j->...", self.blob_amps, jnp.exp(-r2 * self.blob_inv2s2))
+        val = val + _einsum("j,...j->...", self.blob_amps, jnp.exp(-r2 * self.blob_inv2s2))
         return 127.5 + val
 
 
@@ -161,17 +166,17 @@ def render(
     )
     if isinstance(scene, MultiPlaneScene):
         # Nearest positive intersection over all planes.
-        denom = jnp.einsum("pj,...j->...p", scene.normals, rw)  # (..., P)
-        num = scene.offsets - jnp.einsum("pj,j->p", scene.normals, t)  # (P,)
+        denom = _einsum("pj,...j->...p", scene.normals, rw)  # (..., P)
+        num = scene.offsets - _einsum("pj,j->p", scene.normals, t)  # (P,)
         tp = num / jnp.where(jnp.abs(denom) < 1e-9, 1e-9, denom)
         tp = jnp.where(tp > 0.05, tp, jnp.float32(jnp.inf))
         tstar = jnp.min(tp, axis=-1)
         tstar = jnp.where(jnp.isfinite(tstar), tstar, jnp.float32(100.0))
     else:
         n = scene.normal
-        denom = jnp.einsum("j,...j->...", n, rw)
+        denom = _einsum("j,...j->...", n, rw)
         denom = jnp.where(jnp.abs(denom) < 1e-9, 1e-9, denom)
-        tstar = (scene.offset - jnp.einsum("j,j->", n, t)) / denom
+        tstar = (scene.offset - _einsum("j,j->", n, t)) / denom
     p = t + tstar[..., None] * rw
     img = scene.texture(p)
     return img, tstar  # Z == tstar because the camera ray has unit z

@@ -1,6 +1,6 @@
 """Stereo semi-dense inverse-depth frontend: select -> match -> refine -> filter.
 
-TPU-native equivalent of ``DepthEstimator`` (``src/depth_estimate.cpp``):
+Batched-tensor equivalent of ``DepthEstimator`` (``src/depth_estimate.cpp``):
 
   1. 3x3 Gaussian blur of both rectified images (``:256-257``),
   2. blockwise adaptive gradient selection  (kernels/select.py),
@@ -180,7 +180,7 @@ def _eval_system_points(
     warped column reproduces the reference's 0.5*(R[wx+1]-R[wx-1]) exactly
     while halving the per-iteration gather count.
 
-    interp="mm" samples the (right, gxr) stack `chan` gather-free via MXU
+    interp="mm" samples the (right, gxr) stack `chan` gather-free via
     one-hot matmuls (rows are exact: the stereo warp never leaves the
     epipolar line, so the vertical interpolation weight is a one-hot).
     """
@@ -295,11 +295,10 @@ def refine_depth_points_patch(
     cfg: DepthConfig,
     half_width: int = 7,
 ):
-    """Window-patch inverse-depth refinement (the TPU-fast production path).
+    """Window-patch inverse-depth refinement (the production path).
 
     The full-image path (:func:`refine_depth_points`) pays ~5 gathers of
-    (cap,) <- (H, W) per LM iteration (~5 ms per depth run at KITTI size,
-    xprof-measured — the single largest depth cost). With the round-5 drift
+    (cap,) <- (H, W) per LM iteration. With the drift
     cap (DepthConfig.refine_max_shift ~ 1.5 px) refinement is BY DESIGN a
     sub-pixel polish inside a few px of the integer search winner, so this
     path gathers one (cap, 2*half_width+1) window of the right image around
@@ -332,9 +331,7 @@ def refine_depth_points_patch(
 
     # Gather-free window interpolation: linear interp at position p over a
     # K-tap resident window is the hat-weighted sum sum_k w[k]*hat(p - k) —
-    # pure (cap, K) VPU lane math. take_along_axis per iteration was
-    # measured as slow as the full-image gather it replaced (TPU gathers
-    # are per-element-overhead-bound, not footprint-bound).
+    # pure (cap, K) lane math, with no gather inside the LM iteration.
     taps_p = jnp.arange(2 * hw + 1, dtype=jnp.float32)[None, :]
     taps_g = jnp.arange(1, 2 * hw, dtype=jnp.float32)[None, :]
 
@@ -420,6 +417,19 @@ def refine_depth_points_patch(
     return out.current, out.resid, out.it, out.err_now, escaped
 
 
+def search_band(cam: CameraConfig, cfg: DepthConfig):
+    """(max_disparity, min_disparity) of the stereo search; None = unbounded."""
+    max_disp = cfg.max_disparity
+    min_disp = None
+    if cfg.range_limited_search:
+        # Clamp to the image width: a 0.1 m min_depth implies a 3861 px
+        # "band" at KITTI intrinsics, which is full search.
+        band_max = min(int(cam.fx * cam.baseline / cfg.min_depth) + 1, cam.width)
+        max_disp = band_max if max_disp is None else min(max_disp, band_max)
+        min_disp = max(1, int(cam.fx * cam.baseline / cfg.max_depth))
+    return max_disp, min_disp
+
+
 def compute_depth(
     left: jax.Array,
     right: jax.Array,
@@ -440,16 +450,7 @@ def compute_depth(
         min_points_per_block=cfg.min_points_per_block,
     )
 
-    max_disp = cfg.max_disparity
-    min_disp = None
-    if cfg.range_limited_search:
-        # Clamp to the image width: a min_depth band wider than the epipolar
-        # segment is full search (and must not select the banded kernel,
-        # whose VMEM slab scales with the band — a 0.1 m min_depth implies a
-        # 3861 px "band" at KITTI intrinsics).
-        band_max = min(int(cam.fx * cam.baseline / cfg.min_depth) + 1, cam.width)
-        max_disp = band_max if max_disp is None else min(max_disp, band_max)
-        min_disp = max(1, int(cam.fx * cam.baseline / cfg.max_depth))
+    max_disp, min_disp = search_band(cam, cfg)
     from odometry_tpu.kernels.disparity import disparity_winner_maps
 
     best, match, rmatch, second = disparity_winner_maps(
@@ -459,7 +460,6 @@ def compute_depth(
         max_disparity=max_disp,
         min_disparity=min_disp,
         lr_check=cfg.lr_check,
-        backend=cfg.search_backend,
         second_best=cfg.ratio_test > 0,
         second_excl=cfg.ratio_excl,
     )
@@ -514,8 +514,8 @@ def compute_depth(
 
     # Lane-level finalize (thresholding + LR cycle check + disparity->inverse
     # depth), the _finalize semantics applied to <=cap lanes instead of the
-    # full image: the lr-check's take_along_axis over a dense (H, W) map
-    # costs ~4.5 ms at KITTI size on TPU; these lane gathers are ~us.
+    # full image: gathers of <=cap lanes instead of a take_along_axis over
+    # the dense (H, W) map.
     ys_l = pts.ys.astype(jnp.int32)
     xs_l = pts.xs.astype(jnp.int32)
     best_l = pts.inv_depth  # extract carried the best-SSD values

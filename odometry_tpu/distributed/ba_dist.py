@@ -6,10 +6,10 @@ The Schur-reduced pose system is a sum over point lanes:
 
 so sharding the point-lane axis over a ``model`` mesh axis makes each device
 linearize and reduce only its own lanes; one ``psum`` of the (6K x 6K, 6K)
-system over ICI replicates the reduced problem, every device solves the tiny
+system across devices replicates the reduced problem, every device solves the tiny
 dense system redundantly (cheaper than a gather), and depth back-substitution
 is purely local. This is the SURVEY.md §2 "distributed BA solved via
-Schur-complement reduction over ICI collectives" design.
+Schur-complement reduction over collectives" design.
 """
 
 from __future__ import annotations

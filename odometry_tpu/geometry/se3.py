@@ -1,6 +1,6 @@
 """Pure-JAX SE(3)/SO(3) Lie-group math (float32, fully batched).
 
-TPU-native replacement for the vendored Sophus library used by the reference
+Batched replacement for the vendored Sophus library used by the reference
 (``third_party/Sophus/sophus/se3.hpp``, ``so3.hpp``). Only the operations the
 odometry stack needs are implemented, but all of them accept arbitrary leading
 batch dimensions and are jit/vmap/grad-safe (Taylor fallbacks near the
@@ -22,7 +22,8 @@ import jax.numpy as jnp
 # Small-angle cutoff: below this, use Taylor expansions. float32-safe.
 _EPS = 1e-6
 
-# TPU matmuls default to bf16 passes; Lie-group algebra needs true f32.
+# Default f32 matmuls may run in reduced precision (TF32 on a GPU);
+# Lie-group algebra needs true f32.
 _mm = functools.partial(jnp.matmul, precision=jax.lax.Precision.HIGHEST)
 _einsum = functools.partial(jnp.einsum, precision=jax.lax.Precision.HIGHEST)
 

@@ -20,48 +20,13 @@ All functions are jit-safe with static shapes.
 
 from __future__ import annotations
 
-import functools
 from typing import Tuple
 
 import jax
 import jax.numpy as jnp
-import numpy as np
 
 GAUSS3 = (0.25, 0.5, 0.25)
 GAUSS5 = (1.0 / 16.0, 4.0 / 16.0, 6.0 / 16.0, 4.0 / 16.0, 1.0 / 16.0)
-
-_HIGHEST = jax.lax.Precision.HIGHEST
-
-
-@functools.lru_cache(maxsize=None)
-def _pyrdown_matrix(n_in: int, n_out: int) -> np.ndarray:
-    """(n_out, n_in) banded matrix: 5-tap Gaussian blur (REFLECT_101 borders)
-    fused with even-index 2x decimation — one row per output sample.
-
-    TPU note: expressing blur+decimate as a matmul keeps the work on the MXU;
-    the strided-slice formulation forces lane relayouts that cost ~20x more
-    than the arithmetic (measured on v5e).
-    """
-    A = np.zeros((n_out, n_in), np.float32)
-    for o in range(n_out):
-        c = 2 * o
-        for j, t in enumerate(GAUSS5):
-            idx = c + j - 2
-            if idx < 0:
-                idx = -idx  # BORDER_REFLECT_101
-            elif idx >= n_in:
-                idx = 2 * (n_in - 1) - idx
-            A[o, idx] += t
-    return A
-
-
-@functools.lru_cache(maxsize=None)
-def _decimate_matrix(n_in: int, n_out: int, offset: int) -> np.ndarray:
-    """(n_out, n_in) one-hot selection of rows offset, offset+2, ... (exact)."""
-    A = np.zeros((n_out, n_in), np.float32)
-    for o in range(n_out):
-        A[o, offset + 2 * o] = 1.0
-    return A
 
 
 def _reflect101_pad(img: jax.Array, r: int) -> jax.Array:
@@ -93,33 +58,12 @@ def gaussian_blur3(img: jax.Array) -> jax.Array:
 
 
 def pyr_down(img: jax.Array) -> jax.Array:
-    """cv::pyrDown with forced floor(n/2) output size.
-
-    On TPU: computed as Av @ img @ Ah^T with banded blur+decimate matrices
-    (see :func:`_pyrdown_matrix`) — the strided-slice formulation forces lane
-    relayouts that cost ~20x more than the arithmetic on v5e. HIGHEST
-    precision keeps f32 exactness (default matmul precision runs f32 through
-    bf16 passes, ~0.7 intensity levels of error).
-
-    Off TPU the O(H^2 W + H W^2) matmuls are a large pessimization vs the
-    O(k H W) separable conv + free strided slice, so CPU/GPU use that path
-    (identical semantics; FP summation order differs in the last ulp).
-    """
-    from odometry_tpu.utils.platform import on_tpu
-
+    """cv::pyrDown with forced floor(n/2) output size: separable 5-tap blur,
+    then even-index decimation by a strided slice."""
     h, w = img.shape
     oh, ow = h // 2, w // 2
-    if not on_tpu():
-        blurred = _sep_conv(img, GAUSS5)
-        return blurred[: 2 * oh : 2, : 2 * ow : 2]
-    Av = jnp.asarray(_pyrdown_matrix(h, oh))
-    Ah = jnp.asarray(_pyrdown_matrix(w, ow))
-    t = jax.lax.dot_general(
-        Av, img, (((1,), (0,)), ((), ())), precision=_HIGHEST
-    )
-    return jax.lax.dot_general(
-        t, Ah, (((1,), (1,)), ((), ())), precision=_HIGHEST
-    )
+    blurred = _sep_conv(img, GAUSS5)
+    return blurred[: 2 * oh : 2, : 2 * ow : 2]
 
 
 def median_blur3(img: jax.Array) -> jax.Array:
@@ -162,28 +106,12 @@ def depth_pyramid(
     """
     if indexing not in ("odd", "even"):
         raise ValueError(f"bad indexing mode {indexing!r}")
-    from odometry_tpu.utils.platform import on_tpu
-
     off = 1 if indexing == "odd" else 0
-    use_mm = on_tpu()
     levels = [median_blur3(dep) if smooth else dep]
     for _ in range(1, num_levels):
         prev = levels[-1]
         oh, ow = prev.shape[0] // 2, prev.shape[1] // 2
-        if not use_mm:
-            # Off-TPU a strided slice is free; the one-hot matmuls are not.
-            levels.append(prev[off : off + 2 * oh : 2, off : off + 2 * ow : 2])
-            continue
-        # One-hot selection matmuls (exact); strided slices force lane
-        # relayouts ~1 ms each on v5e at KITTI width.
-        Sv = jnp.asarray(_decimate_matrix(prev.shape[0], oh, off))
-        Sh = jnp.asarray(_decimate_matrix(prev.shape[1], ow, off))
-        t = jax.lax.dot_general(
-            Sv, prev, (((1,), (0,)), ((), ())), precision=_HIGHEST
-        )
-        levels.append(
-            jax.lax.dot_general(t, Sh, (((1,), (1,)), ((), ())), precision=_HIGHEST)
-        )
+        levels.append(prev[off : off + 2 * oh : 2, off : off + 2 * ow : 2])
     return tuple(levels)
 
 

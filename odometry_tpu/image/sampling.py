@@ -63,7 +63,7 @@ def sample_bilinear(img: jax.Array, u: jax.Array, v: jax.Array) -> jax.Array:
 
 
 # Full-f32 matmul passes for the dtype=float32 mode of sample_channels_mm
-# (same pattern as pyramid.py's _HIGHEST; defined before first use).
+# (defined before first use).
 _MM_PRECISION = jax.lax.Precision.HIGHEST
 
 
@@ -73,18 +73,17 @@ def sample_channels_mm(
     v: jax.Array,
     dtype=jnp.bfloat16,
 ) -> jax.Array:
-    """Gather-free bilinear sampling of C channels at N points via the MXU.
+    """Gather-free bilinear sampling of C channels at N points via matmuls.
 
     ``sample(I, u, v) = e_v(v)^T @ I @ e_u(u)`` where e_u/e_v are the 2-tap
     bilinear interpolation one-hot vectors. Stage 1 contracts the width axis
     for all channels at once ((C*H, W) @ (W, N) matmul); stage 2 reduces the
     height axis with per-point weights (elementwise + sum).
 
-    TPU rationale: XLA's random gather costs ~13 cycles/element + ~80 us
-    fixed per op on v5e, which made gathers >95% of the direct-alignment
-    iteration. This formulation is dense regular math: ~2x C*H*W*N/row MACs
-    on the systolic array + bandwidth for the interpolation matrices;
-    measured ~8x faster than the 6-gather path at N=8192 (tools/microbench8).
+    This formulation is dense regular math: ~2x C*H*W*N/row MACs plus
+    bandwidth for the interpolation matrices, in place of random gathers.
+    Whether it beats the gather path depends on the device's gather cost
+    (tools/microbench.py `sample`).
 
     `dtype` controls matmul input precision: bfloat16 quantizes 0-255 images
     by up to ~1 intensity level (fine for robust tracking, validated on the

@@ -1,8 +1,8 @@
-"""Epipolar 8-point-pattern SSD disparity search, reformulated for the MXU.
+"""Epipolar 8-point-pattern SSD disparity search as dense tensor math.
 
 The reference scans each selected pixel's full epipolar segment with an AVX
 SSD kernel (``depth_estimate.cpp:345-398``, ``ComputeSsdPattern8Sse
-:435-453``). The TPU-native design turns the whole search into matrix math:
+:435-453``). Here the whole search is matrix math:
 
 With the 8-point DSO residual pattern stacked into per-pixel pattern vectors
 ``P_L[:, x]`` and ``P_R[:, xr]`` (shape (8, W) per row), the SSD between left
@@ -10,10 +10,12 @@ pixel x and right candidate xr expands to
 
     SSD(x, xr) = ||P_L[:,x]||^2 + ||P_R[:,xr]||^2 - 2 P_L[:,x] . P_R[:,xr]
 
-so one (W, 8) @ (8, W) matmul per row scores *every* (pixel, candidate) pair
-on the systolic array, and the winner-take-all over candidates is a masked
-argmin reduction. Rows are batched through `lax.map` so the per-chunk cost
-volume stays small.
+so one (W, 8) @ (8, W) matmul per row scores *every* (pixel, candidate) pair,
+and the winner-take-all over candidates is a masked argmin reduction. Rows
+are batched through `lax.map` so the per-chunk cost volume stays small. On
+the GPU, :func:`disparity_winner_maps` runs the banded Pallas/Triton kernel
+of :mod:`odometry_tpu.kernels.disparity_triton` instead, which scores only
+the band and writes no cost volume.
 
 Pattern offsets (dy, dx), identical to ``ComputeSsdPattern8``
 (``depth_estimate.cpp:420-433``): (-2,0), (-1,-1), (-1,+1), (0,-2), (0,0),
@@ -67,17 +69,15 @@ def disparity_search(
     row_chunk: int = 8,
     lr_check: bool = False,
     lr_tol: int = 1,
-    backend: str = "auto",
 ) -> DisparityResult:
     """Full-search stereo matching for selected pixels (dense-map API).
 
     Matches the reference scan ``for right_x in [boundary, x)`` with
     first-minimum tie-breaking (strict `<` update at ``depth_estimate.cpp:385``
     == argmin's first-occurrence rule). `left`/`right` should be the blurred
-    images. A finite `max_disparity` additionally bounds the scan (TPU
-    throughput config; None == exact reference behaviour). `row_chunk` sizes
-    the XLA backend's per-chunk cost volume only; the Pallas kernels tile
-    internally and ignore it.
+    images. A finite `max_disparity` additionally bounds the scan
+    (throughput configs; None == exact reference behaviour). `row_chunk`
+    sizes the cost-matrix search's per-chunk cost volume only.
 
     lr_check=True (beyond-reference) additionally requires left->right and
     right->left winners to agree within `lr_tol` pixels — in this cost-matrix
@@ -88,14 +88,14 @@ def disparity_search(
     NOTE the production frontend (depth/estimator.py) consumes
     :func:`disparity_winner_maps` + its own lane-level finalize instead: this
     dense path's lr-check gather (``take_along_axis`` over the full image)
-    costs ~4.5 ms at KITTI size on TPU, vs microseconds on the <=16k
+    touches every pixel, where the frontend gathers only the <=16k
     extracted lanes.
     """
     best, match, rmatch, _ = disparity_winner_maps(
         left, right,
         boundary=boundary, max_disparity=max_disparity,
         min_disparity=min_disparity, row_chunk=row_chunk,
-        lr_check=lr_check, backend=backend,
+        lr_check=lr_check,
     )
     return _finalize(
         left, best, match, rmatch, select_mask,
@@ -113,11 +113,10 @@ def disparity_winner_maps(
     min_disparity: int | None = None,
     row_chunk: int = 8,
     lr_check: bool = False,
-    backend: str = "auto",
     second_best: bool = False,
     second_excl: int = 2,
 ):
-    """(best, match, rmatch, second) dense winner maps, backend-dispatched.
+    """(best, match, rmatch, second) dense winner maps.
 
     best[y, x] = best SSD for left pixel x; match[y, x] = its right-image
     column; rmatch[y, xr] = best left column for right pixel xr (zeros when
@@ -125,68 +124,36 @@ def disparity_winner_maps(
     window around the winner (1e10 fill when `second_best` is False or no
     other candidate exists) for the uniqueness/ratio test. Thresholding and
     assembly are left to the caller.
+
+    Lowered for CUDA this runs the band kernel of
+    :mod:`odometry_tpu.kernels.disparity_triton`; elsewhere the cost-matrix
+    search below (`row_chunk` sizes its per-chunk cost volume).
     """
+    kw = dict(boundary=boundary, max_disparity=max_disparity,
+              min_disparity=min_disparity, lr_check=lr_check,
+              second_best=second_best, second_excl=second_excl)
+
+    def band_kernel(a, b):
+        from odometry_tpu.kernels import disparity_triton
+
+        return disparity_triton.band_winner_maps(a, b, **kw)
+
+    return jax.lax.platform_dependent(
+        left, right, cuda=band_kernel,
+        default=lambda a, b: cost_matrix_winner_maps(a, b, row_chunk=row_chunk, **kw),
+    )
+
+
+def cost_matrix_winner_maps(
+    left, right, *, boundary, max_disparity, min_disparity, row_chunk=8,
+    lr_check, second_best, second_excl,
+):
+    """:func:`disparity_winner_maps` as (W, W) cost matrices per row chunk."""
     H, W = left.shape
     PL = pattern_stack(left)  # (8, H, W)
     PR = pattern_stack(right)
     ln = jnp.sum(PL * PL, axis=0)  # (H, W)
     rn = jnp.sum(PR * PR, axis=0)
-
-    if backend == "auto":
-        from odometry_tpu.utils.platform import on_tpu
-        from odometry_tpu.kernels.disparity_pallas import (
-            band_fits_vmem,
-            pallas_width_ok,
-        )
-
-        # On-chip parity (tools/tpu_parity.py) passes for BOTH Pallas kernels
-        # since the _split3 fix (hi must be bf16(x), not round(x), whose
-        # exactness silently required |x| <= 256): winners agree with the XLA
-        # path everywhere except SSD near-ties within the split's ~0.25
-        # absolute error band, where 1-2 px per KITTI frame flip to an
-        # equally-scoring candidate. auto therefore selects Pallas on TPU;
-        # banded when a NARROW disparity band is configured (a wide band's
-        # slab planes blow scoped VMEM — band_fits_vmem), full-search when
-        # the width fits the per-row cost-matrix VMEM budget.
-        banded = max_disparity is not None and band_fits_vmem(max_disparity)
-        backend = "pallas" if (on_tpu() and (banded or pallas_width_ok(W))) else "xla"
-    if backend == "pallas" and max_disparity is not None:
-        from odometry_tpu.kernels.disparity_pallas import (
-            band_fits_vmem,
-            disparity_band_pallas,
-            pallas_width_ok,
-        )
-
-        if band_fits_vmem(max_disparity):
-            # Banded fused kernel: compute only the [min_disparity,
-            # max_disparity] candidate band as MXU tiles along the diagonal —
-            # width-unlimited.
-            return disparity_band_pallas(
-                PL, PR, ln, rn, boundary=boundary,
-                max_disparity=max_disparity, min_disparity=min_disparity,
-                lr=lr_check, second_best=second_best, second_excl=second_excl,
-            )
-        # Wide band: the full-search kernel applies the same band as a mask
-        # (when the width fits); otherwise fall through to the XLA path.
-        if not pallas_width_ok(W):
-            backend = "xla"
-    if backend == "pallas":
-        from odometry_tpu.kernels.disparity_pallas import (
-            disparity_cost_argmin_pallas,
-            pallas_width_ok,
-        )
-
-        if not pallas_width_ok(W):
-            raise ValueError(
-                f"disparity pallas kernel: width {W} exceeds the VMEM budget "
-                "(per-row (Wp, Wp) cost matrices); use backend='xla' or 'auto'"
-            )
-
-        return disparity_cost_argmin_pallas(
-            PL, PR, ln, rn, boundary=boundary,
-            max_disparity=max_disparity, min_disparity=min_disparity,
-            second_best=second_best, second_excl=second_excl,
-        )
 
     xs = jax.lax.broadcasted_iota(jnp.int32, (W, W), 0)  # left pixel x
     xr = jax.lax.broadcasted_iota(jnp.int32, (W, W), 1)  # right candidate
@@ -205,7 +172,7 @@ def disparity_winner_maps(
 
     def score_chunk(args):
         pl, pr, lnc, rnc = args  # (8, RB, W), ..., (RB, W)
-        cross = _einsum("kbx,kby->bxy", pl, pr)  # (RB, W, W) on the MXU
+        cross = _einsum("kbx,kby->bxy", pl, pr)  # (RB, W, W)
         ssd = lnc[:, :, None] + rnc[:, None, :] - 2.0 * cross
         ssd = jnp.where(cand_ok[None], ssd, jnp.float32(1e10))
         best = jnp.min(ssd, axis=2)

@@ -3,13 +3,13 @@
 This is hot kernel #1: the reference's scalar loop
 ``LevenbergMarquardtOptimizer::ComputeResidualJacobianNaive``
 (``lm_optimizer.cpp:163-264``) touches every pixel of every pyramid level each
-LM iteration. The TPU-native re-expression is dense masked tensor math:
+LM iteration. Here it is dense masked tensor math:
 
 * every "skip this pixel" (invalid depth, behind camera, out of bounds)
   becomes a zero-weight mask lane instead of a `continue`;
 * the per-pixel 2x6 warp-Jacobian chain becomes a fused elementwise map
   producing a (H, W, 6) field;
-* `J^T W J` / `J^T W r` become (6, N) @ (N, 6) contractions on the MXU.
+* `J^T W J` / `J^T W r` become (6, N) @ (N, 6) contractions.
 
 Interp mode "floor" reproduces the reference's nearest-via-floor image lookup
 and integer-coordinate gradients (``lm_optimizer.cpp:208-217`` — flagged
@@ -140,7 +140,7 @@ class NormalEqs(NamedTuple):
 
 
 def normal_equations(sys: ResidualSystem, weights: jax.Array) -> NormalEqs:
-    """Reduce the dense system to 6x6 normal equations on the MXU.
+    """Reduce the dense system to 6x6 normal equations.
 
     weights: (H, W) robust weights (0 where invalid is fine — invalid lanes
     of r/J are already zeroed).

@@ -1,10 +1,10 @@
-"""Fixed-capacity point lists: the sparse TPU-native tracking representation.
+"""Fixed-capacity point lists: the sparse tracking representation.
 
 The reference's hot loops iterate only pixels with valid depth (~5-8% of the
 frame, ``lm_optimizer.cpp:193``) or selected points (``depth_estimate.cpp:
-106-116``). A dense masked formulation pays the (expensive, ~16 ns/element)
-TPU gather for 100% of pixels; extracting the valid pixels ONCE per keyframe
-into static-capacity point arrays makes every LM iteration ~12x cheaper.
+106-116``). A dense masked formulation pays a gather for 100% of pixels;
+extracting the valid pixels ONCE per keyframe into static-capacity point
+arrays makes every LM iteration's scattered reads scale with the points.
 
 Capacity semantics mirror the reference's ``max_residuals`` cap
 (``run_odometry_kitti_offline.cpp:60``): extraction keeps the first
@@ -58,9 +58,8 @@ def extract_points(
     order="blocked": spatially-capped per-tile extraction — the image is cut
     into ~capacity/16 tiles and each tile keeps a fixed slot budget of valid
     pixels, via one batched ``lax.top_k``. Same spatial-uniformity intent as
-    "spread" but WITHOUT the global stream-compaction: jnp.nonzero lowers to
-    a full-image cumsum that costs ~4-9 ms at KITTI size on TPU (measured,
-    round-3 trace), vs ~0.2 ms for the batched per-tile sort. Tiles with more
+    "spread" but WITHOUT the global stream-compaction (jnp.nonzero lowers to
+    a full-image cumsum). Tiles with more
     valid pixels than slots truncate (a spatial cap); underfull tiles leave
     masked lanes.
 
@@ -245,8 +244,8 @@ def residual_jacobian_points(
     of 5); bilinear mode samples the gradients at the NEAREST pixel (the
     Jacobian tolerates first-order approximation; 6 gathers instead of 12).
 
-    interp="mm" is the TPU-fast path: gather-free bilinear sampling of
-    (image, gx, gy) via MXU one-hot matmuls (see
+    interp="mm" is gather-free bilinear sampling of
+    (image, gx, gy) via one-hot matmuls (see
     :func:`odometry_tpu.image.sampling.sample_channels_mm`); gradients are
     bilinearly interpolated at the warp (higher quality than the nearest-pixel
     gather modes). `chan` must then be the precomputed (3, H, W) stack

@@ -23,12 +23,12 @@ so the pose system is reduced by the Schur complement
 — a (6K x 6K) dense solve (42x42 for the default 7-keyframe window) — and
 depths back-substitute as dd = (bd - Hpd' dxi) / Hdd.
 
-TPU mapping: everything is batched over (observer j, point lane p) with the
+Batching: everything is batched over (observer j, point lane p) with the
 pair/pose-block accumulations as einsum contractions; the only scattered
 memory access is the bilinear image sampling. The point-lane axis is the
 sharding axis for distributed BA (distributed/ba_dist.py): each device
 reduces its own lanes' contributions and the 6K x 6K system is psum-reduced
-over ICI.
+across devices.
 
 Gauge: the oldest window keyframe is pinned by a large diagonal prior on its
 pose block.

@@ -34,7 +34,7 @@ import numpy as np
 
 from odometry_tpu.camera.pinhole import Pinhole
 from odometry_tpu.config import TrackerConfig
-from odometry_tpu.geometry import se3_inverse
+from odometry_tpu.geometry import se3_compose, se3_inverse
 from odometry_tpu.kernels.points import PointSet
 from odometry_tpu.mapping.keyframe import KeyframeStore
 from odometry_tpu.mapping.pose_graph import PoseGraph, optimize_pose_graph
@@ -95,7 +95,7 @@ def propose_loop(
     `view`, when given, is a host-side numpy mirror of the store metadata
     {occupied, frame_id, pos (K,3), path, thumb} — run_slam maintains one so
     proposal costs zero device reads (each np.asarray on a store field is a
-    full round trip on remote-tunnel links).
+    full device round trip).
     """
     if view is not None:
         occ, fid = view["occupied"], view["frame_id"]
@@ -166,7 +166,7 @@ def verify_loop(
         valid=store.point_valid[cand_slot],
         num=jnp.sum(store.point_valid[cand_slot]).astype(jnp.int32),
     )
-    T_init = se3_inverse(store.pose[new_slot]) @ store.pose[cand_slot]
+    T_init = se3_compose(se3_inverse(store.pose[new_slot]), store.pose[cand_slot])
     solve_cfg = dataclasses.replace(tcfg, step_tol=0.0)
     L = tcfg.num_levels
     cams = intrinsic_pyramid(cam, L)
@@ -196,7 +196,7 @@ def verify_loop(
     X = Z0 * (pts.xs - cam.cx) / cam.fx
     Y = Z0 * (pts.ys - cam.cy) / cam.fy
     P = jnp.stack([X, Y, Z0, jnp.ones_like(X)])
-    Q = T @ P
+    Q = jnp.matmul(T, P, precision=jax.lax.Precision.HIGHEST)
     H, W = store.image.shape[1:]
     u = cam.fx * Q[0] / jnp.where(Q[2] == 0, 1.0, Q[2]) + cam.cx
     v = cam.fy * Q[1] / jnp.where(Q[2] == 0, 1.0, Q[2]) + cam.cy
@@ -213,7 +213,7 @@ def verify_loop(
     # must stay within the drift budget of the prior — a budget that GROWS
     # with the path travelled between the two keyframes (drift_per_meter),
     # so long genuine loops with meters of accumulated drift stay closable.
-    C = T @ se3_inverse(T_init)
+    C = se3_compose(T, se3_inverse(T_init))
     dt = jnp.linalg.norm(C[:3, 3])
     cos_r = jnp.clip(0.5 * (jnp.trace(C[:3, :3]) - 1.0), -1.0, 1.0)
     dr = jnp.arccos(cos_r)

@@ -26,6 +26,7 @@ import jax.numpy as jnp
 
 from odometry_tpu.geometry import (
     se3_adjoint,
+    se3_compose,
     se3_exp,
     se3_inverse,
     se3_log,
@@ -53,7 +54,7 @@ def odometry_edges(poses: jax.Array, weight: float = 1.0):
     n = poses.shape[0]
     i = jnp.arange(n - 1, dtype=jnp.int32)
     j = i + 1
-    Z = jax.vmap(lambda a, b: se3_inverse(a) @ b)(poses[:-1], poses[1:])
+    Z = jax.vmap(lambda a, b: se3_compose(se3_inverse(a), b))(poses[:-1], poses[1:])
     w = jnp.full((n - 1,), weight, jnp.float32)
     return i, j, Z, w
 
@@ -61,8 +62,8 @@ def odometry_edges(poses: jax.Array, weight: float = 1.0):
 def _residuals(graph: PoseGraph):
     Ti = graph.poses[graph.edge_i]
     Tj = graph.poses[graph.edge_j]
-    rel = jax.vmap(lambda a, b: se3_inverse(a) @ b)(Ti, Tj)
-    err_T = jax.vmap(lambda z, m: se3_inverse(z) @ m)(graph.edge_T, rel)
+    rel = jax.vmap(lambda a, b: se3_compose(se3_inverse(a), b))(Ti, Tj)
+    err_T = jax.vmap(lambda z, m: se3_compose(se3_inverse(z), m))(graph.edge_T, rel)
     r = jax.vmap(se3_log)(err_T)  # (E, 6)
     return r, rel
 

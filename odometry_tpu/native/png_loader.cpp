@@ -4,7 +4,7 @@
 // (run_odometry_kitti_offline.cpp:334-359), serializing decode with compute.
 // Here decode runs in C++ worker threads that stay ahead of the device:
 // python asks for frame pairs and receives float32 grayscale buffers that
-// were inflated/unfiltered while the TPU was busy with the previous frame.
+// were inflated/unfiltered while the device was busy with the previous frame.
 //
 // Self-contained PNG support (zlib only): 8-bit greyscale (colour type 0),
 // 8-bit RGB/RGBA (2, 6) with BT.601 grey conversion matching

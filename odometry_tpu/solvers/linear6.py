@@ -1,7 +1,7 @@
-"""Unrolled 6x6 SPD solve (Cholesky), straight-line code for TPU.
+"""Unrolled 6x6 SPD solve (Cholesky), straight-line code.
 
-``jnp.linalg.solve`` on TPU lowers small dense solves through generic LU
-machinery with device loops — a measurable fixed cost inside the tracker's
+``jnp.linalg.solve`` lowers small dense solves through generic LU
+machinery (or a solver library call) — a measurable fixed cost inside the tracker's
 LM ``while_loop``. The damped normal equations A = JtWJ + lambda*diag(JtWJ)
 are symmetric positive (semi-)definite, so an unrolled Cholesky
 forward/backward substitution compiles to a single short fused kernel.

@@ -1,6 +1,6 @@
 """Coarse-to-fine direct photometric SE(3) tracker (Levenberg-Marquardt).
 
-TPU-native re-expression of ``LevenbergMarquardtOptimizer``
+Batched re-expression of ``LevenbergMarquardtOptimizer``
 (``lm_optimizer.cpp:54-160``): the per-level LM loop becomes a
 ``lax.while_loop`` with a pose-matrix carry, levels are unrolled in Python
 (each level has a different static shape), and the accept/reject lambda
@@ -153,7 +153,7 @@ def _solve_level_points(
 ):
     # Gradient images once per level per frame; every LM iteration then needs
     # only 3 (floor) / 6 (bilinear) gathers — or zero gathers in "mm" mode,
-    # which samples the precomputed (img, gx, gy) stack via MXU matmuls.
+    # which samples the precomputed (img, gx, gy) stack via one-hot matmuls.
     from odometry_tpu.image.pyramid import central_gradients
 
     grads = central_gradients(img_cur)

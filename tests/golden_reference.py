@@ -9,7 +9,7 @@ cv::pyrDown semantics), the composed behaviour of the reference executable:
   * pyramids ............. image_processing_global.cpp:12-113
   * Sophus SE3::exp ...... third_party/Sophus/sophus/se3.hpp:765
 
-It exists ONLY to pin end-to-end parity of the TPU pipeline's parity
+It exists ONLY to pin end-to-end parity of the pipeline's parity
 configuration (floor warps, odd depth decimation, stale keyframe warm start,
 level-1-from-unsmoothed pyramid, lambda schedules, selected-but-unmatched
 points entering refinement at depth 0) — tests/test_reference_parity.py.
@@ -27,7 +27,7 @@ Faithfulness notes:
     deterministic frame-0 interpretation: those depths are 0.
   * Where the reference divides by a zero diagonal (depth refinement
     jtwj=0 -> delta = 0/0), we define delta = 0 (the evident intent; same
-    choice as the TPU build, see odometry_tpu/depth/estimator.py docstring).
+    choice as the JAX build, see odometry_tpu/depth/estimator.py docstring).
 """
 
 from __future__ import annotations

@@ -1,4 +1,4 @@
-"""Golden parity tests: dense TPU kernels vs scalar ports of the reference loops."""
+"""Golden parity tests: dense kernels vs scalar ports of the reference loops."""
 
 import numpy as np
 import jax

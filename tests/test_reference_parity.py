@@ -1,4 +1,4 @@
-"""End-to-end parity: the TPU pipeline's parity configuration must reproduce
+"""End-to-end parity: the pipeline's parity configuration must reproduce
 the reference frame loop, frame for frame.
 
 The golden model (tests/golden_reference.py) is a NumPy/cv2 transliteration of
@@ -25,7 +25,7 @@ Structure of the parity argument (three layers, tightest first):
 3. **Refinement closeness** — the depth refinement LM shares one lambda and
    one scalar cost across ~4000 pixels; its accept/reject path bifurcates on
    float32 summation-order ties (measured: identical inputs, inv_depth
-   differs by <= ~5e-3 and ~0.03% of validity flips between golden and TPU —
+   differs by <= ~5e-3 and ~0.03% of validity flips between golden and JAX —
    and the same would hold between golden and the actual C++, whose AVX hadd
    reduction order is a third ordering). Asserted within those bands.
 
@@ -62,7 +62,7 @@ from odometry_tpu.kernels.select import select_points
 from odometry_tpu.image.pyramid import gaussian_blur3
 from odometry_tpu.tracking.tracker import prepare_keyframe, solve_pose, solve_pose_points
 
-from tests.golden_reference import (
+from golden_reference import (
     GoldenConfig,
     angles_xyz_np,
     compute_depth_np,
@@ -84,7 +84,7 @@ KF_THRESHOLD = 0.08  # step 0.12 / 3.3 per frame => promotion every ~2-3 frames
 POSE_TOL = 2e-3  # teacher-forced |t| tolerance; measured noise ~1e-5..1e-4
 # The tracker LM's break conditions (err_now/err_last > precision,
 # lambda > lambda_max) are float32 ties: when a step lands within last-ulp of
-# the 0.995 ratio, the golden model (f64 np.linalg.solve) and the TPU build
+# the 0.995 ratio, the golden model (f64 np.linalg.solve) and the JAX build
 # (f32 Cholesky) — and equally the C++ (f32 pivoted QR) against either — can
 # break at different iterations. Measured rate: ~1 frame in 30; bounded
 # displacement (the extra iterations only descend further). Such frames get a
@@ -191,7 +191,7 @@ def test_stage_parity_select_and_search_exact(seq3):
     disp_g, _dep_g = disparity_search_np(lb, rb, val_g, golden_config())
     d = disparity_search(jnp.asarray(lb), jnp.asarray(rb), jnp.asarray(val_g == 1),
                          fx=FX, baseline=BASELINE, boundary=4, ssd_th=900.0,
-                         max_disparity=None, backend="xla")
+                         max_disparity=None)
     on = val_g == 1
     assert np.abs(disp_g - np.asarray(d.disparity))[on].max() == 0.0
 

@@ -8,7 +8,7 @@ photometric nuisance model applied) at full KITTI size, reports
 median/min/max, and exits nonzero if any config's MEDIAN is not green with
 margin. Results table is written to ACCURACY.md.
 
-Run on the TPU chip:  python tools/accuracy_sweep.py
+Run on the GPU:  python tools/accuracy_sweep.py
 """
 
 from __future__ import annotations
@@ -146,17 +146,18 @@ def run():
         )
         if r["median"] > GATE * (1 - FAMILY_MARGIN[r["scene"]]):
             ok = False
-    backend = None
-    try:
-        import jax
-
-        backend = jax.devices()[0].platform
-    except Exception:
-        pass
     import datetime
+    import subprocess
 
+    import jax
+
+    dev = jax.devices()[0]
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True).stdout.strip() if dev.platform == "gpu" else ""
     stamp = datetime.date.today().isoformat()
-    lines += ["", f"Measured on: {backend}, {stamp}. Seeds: {SEEDS}.", ""]
+    lines += ["", f"Measured on: {dev.platform} {dev.device_kind} ({card}), {stamp}. "
+              f"Seeds: {SEEDS}.", ""]
     out = "\n".join(lines)
     print(out)
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

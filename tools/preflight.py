@@ -1,10 +1,10 @@
-"""Pre-snapshot gate: bench + default test suite + on-chip Pallas parity.
+"""Pre-snapshot gate: bench + default test suite.
 
 Round 2 and round 3 both shipped end-of-round snapshots with a red bench;
 this makes "green before snapshot" one command. Run before any end-of-round
-commit and paste the three outcome lines into the commit message.
+commit and paste the outcome lines into the commit message.
 
-  python tools/preflight.py            # bench + sharded pytest + tpu parity
+  python tools/preflight.py            # bench + sharded pytest
   python tools/preflight.py --quick    # bench only
   python tools/preflight.py --sweep    # additionally gate on the 5-seed
                                        # accuracy sweep (tools/accuracy_sweep)
@@ -70,8 +70,6 @@ def main():
                 name, [sys.executable, "-m", "pytest", *files, "-q",
                        "-x", "-p", "no:cacheprovider"], 2400,
                 ok_codes=(0, 5)))
-        results.append(run(
-            "tpu-parity", [sys.executable, "tools/tpu_parity.py"], 1200))
     if sweep:  # non-quick full gate: the 5-seed accuracy sweep must exit 0
         results.append(run(
             "accuracy-sweep", [sys.executable, "tools/accuracy_sweep.py"],
